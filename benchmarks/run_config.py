@@ -1,4 +1,4 @@
-"""Run one of the five BASELINE.json benchmark configurations.
+"""Run one of five benchmark configurations.
 
 Usage: python benchmarks/run_config.py <1..5> [--small]
 
@@ -11,7 +11,7 @@ Usage: python benchmarks/run_config.py <1..5> [--small]
   4. Binary-black-hole Bowen-York initial data: full Hamiltonian-constraint
      solve with HDF5 output.
   5. Sharded solve over all local devices (block-partitioned levels,
-     ppermute halos); on a pod this is the 512^3+ weak-scaling config.
+     ppermute halos).
 
 `--small` shrinks the grids for CPU smoke runs. Prints per-config JSON with
 timings and convergence evidence.
@@ -20,6 +20,7 @@ timings and convergence evidence.
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
@@ -128,7 +129,9 @@ def config4(small: bool):
     from mg_ic_code_tpu.solver.nonlinear import poisson_solve
 
     overrides = ["max_level = 1"] if small else ["max_level = 2"]
-    cfg = load_params("/root/reference/params.txt", overrides)
+    cfg = load_params(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "configs", "params.txt"), overrides)
     t0 = time.perf_counter()
     geom = generate_hierarchy(cfg)
     res = poisson_solve(cfg, geom=geom, verbose=False)

@@ -1,4 +1,4 @@
-"""mg_ic_code_tpu — TPU-native geometric-multigrid initial-conditions framework.
+"""mg_ic_code_tpu — geometric-multigrid initial-conditions framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 Chombo/MPI application eugenealim/MG_IC_code (binary-black-hole + scalar-field
@@ -11,13 +11,13 @@ re-linearised around psi in an outer Picard loop, with the linear systems
 solved by BiCGStab preconditioned by AMR geometric-multigrid V-cycles with
 red-black Gauss-Seidel smoothing (reference: Main_PoissonSolver.cpp:40-216).
 
-Design stance (TPU-first, not a translation):
+Design stance (a re-design for accelerators, not a translation):
   * the hierarchy is a forest of LARGE dense patches (one jax.Array per
     separated tag cluster; `level_decomposition = patches`), not a union of
-    small MPI boxes; sharding over the chip mesh replaces rank decomposition
-  * stencil kernels are fused XLA element-wise graphs with a Pallas fast path,
-    not Fortran point loops
-  * halo exchange is `ppermute`/GSPMD collectives over ICI, not MPI copiers
+    small MPI boxes; sharding over the device mesh replaces rank decomposition
+  * stencil kernels are fused XLA element-wise graphs, with one Pallas GPU
+    kernel for the GSRB smoother, not Fortran point loops
+  * halo exchange is `ppermute`/GSPMD collectives, not MPI copiers
   * global reductions are `psum`-style XLA reductions, not MPI_Allreduce
   * float64 outer arithmetic (tolerance 1e-10) with optional float32 smoothing
 """

@@ -137,30 +137,20 @@ class SolverConfig:
     verbosity: int = 3
     coefficient_average_type: str = ARITHMETIC
 
-    # TPU execution options (framework extensions; absent keys default to
+    # execution options (framework extensions; absent keys default to
     # reference-equivalent behaviour)
-    # "single" = f32 MG preconditioner (the TPU-native mixed-precision
-    # mode: V-cycles and their BOTTOM BiCGStab run in f32, whose bottom
+    # "single" = f32 MG preconditioner (mixed precision: V-cycles and
+    # their BOTTOM BiCGStab run in f32, whose bottom
     # tolerance silently floors at 1e-6 — what f32 can resolve; see
     # multigrid.bottom_solve). The OUTER BiCGStab stays f64, so outer
     # convergence to tolerance=1e-10 is unaffected apart from a possible
     # extra outer iteration (locked by
     # tests/test_mg.py::test_precond_precision_single_vs_double).
-    # "auto" resolves per backend when the solver spec is built: single on
-    # TPU (f64 is software-emulated there — a double preconditioner runs
-    # ~2.5x slower per Picard iteration for no outer-accuracy gain),
-    # double elsewhere.
+    # "auto" = double.
     precond_precision: str = "auto"
-    smoother: str = "auto"  # "auto" | "xla" | "pallas"
-    # colour-pass arithmetic of the fused Pallas smoother kernels:
-    # "single" keeps the sweep arithmetic at the operand (f32) precision;
-    # "bfloat16" runs the sweep multiply-adds in bf16 while the per-launch
-    # folding (lambda reciprocal, rhs scaling) and everything around the
-    # smoother (residual, restrict, prolong) stay f32. "auto" resolves when
-    # the solver spec is built — measured on v5e (docs/PERF.md round 4):
-    # Mosaic lowers bf16 elementwise chains at ~f32 VPU rate, so auto =
-    # single there; the knob exists for chips whose VPU packs bf16 2x.
-    smoother_precision: str = "auto"
+    # "auto" = the fused GPU smoother kernel where ops/dispatch allows it,
+    # "xla" = always the XLA body
+    smoother: str = "auto"
     # coarsest-depth solve: "auto" = dense direct inverse when the bottom
     # box is small and the operator non-singular, else BiCGStab;
     # "direct"/"bicgstab" force one (multigrid._use_direct_bottom)
@@ -197,6 +187,9 @@ class SolverConfig:
     # reference only mentions (SetGrids.cpp:29-30: "there is an option to
     # read in grids" — never implemented there).
     read_from_checkpoint: str = ""
+    # write the per-iteration plotfiles and the final checkpoint (HDF5,
+    # needs h5py); 0 runs the solve alone
+    write_output: bool = True
 
     # boundary conditions
     is_periodic: bool = False
@@ -242,8 +235,7 @@ def load_params(path: str, overrides: Sequence[str] = ()) -> SolverConfig:
     # wrong scalar-field physics with no warning)
     for key, default, allowed in (
         ("precond_precision", "auto", ("auto", "double", "single")),
-        ("smoother", "auto", ("auto", "xla", "pallas")),
-        ("smoother_precision", "auto", ("auto", "single", "bfloat16")),
+        ("smoother", "auto", ("auto", "xla")),
         ("bottom_solver", "auto", ("auto", "direct", "bicgstab")),
         ("phi_profile", "gaussian", ("gaussian", "sine")),
         ("level_decomposition", "bbox", ("bbox", "patches")),
@@ -294,7 +286,6 @@ def load_params(path: str, overrides: Sequence[str] = ()) -> SolverConfig:
         hang=pp.query_real("hang", 1.0e-8),
         precond_precision=pp.query_str("precond_precision", "auto"),
         smoother=pp.query_str("smoother", "auto"),
-        smoother_precision=pp.query_str("smoother_precision", "auto"),
         bottom_solver=pp.query_str("bottom_solver", "auto"),
         phi_profile=pp.query_str("phi_profile", "gaussian"),
         average_down=bool(pp.query_int("average_down", 0)),
@@ -302,4 +293,5 @@ def load_params(path: str, overrides: Sequence[str] = ()) -> SolverConfig:
         max_patches=pp.query_int("max_patches", 4),
         forest_batching=pp.query_str("forest_batching", "auto"),
         read_from_checkpoint=pp.query_str("read_from_checkpoint", ""),
+        write_output=bool(pp.query_int("write_output", 1)),
     )

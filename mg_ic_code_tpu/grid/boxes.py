@@ -2,7 +2,7 @@
 
 Equivalent role to Chombo's Box/ProblemDomain (used throughout the reference,
 e.g. PoissonParameters.cpp:110-128, SetGrids.cpp:152-167), but each AMR level
-in this framework is a SINGLE dense box — the TPU-native replacement for
+in this framework is a SINGLE dense box — the dense-array replacement for
 Chombo's union-of-small-boxes DisjointBoxLayout. `lo`/`hi` are inclusive
 cell-index bounds, Chombo-style.
 """

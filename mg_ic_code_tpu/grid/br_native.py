@@ -3,7 +3,7 @@
 The C++ library (native/br_mesh.cpp) supplies the roles the reference gets
 from Chombo: BRMeshRefine tag clustering, domainSplit-style max-size
 splitting and LoadBalance box->shard assignment (SetGrids.cpp:54-132). The
-library is compiled on first use with the in-image g++; a pure-Python
+library is compiled on first use with g++ (or $CXX); a pure-Python
 fallback (same clustering strategy, bounding-box based) keeps the framework
 functional if no compiler is available.
 """
@@ -37,10 +37,17 @@ def _load() -> ctypes.CDLL | None:
         if not os.path.exists(_LIB_PATH) or os.path.getmtime(
             _LIB_PATH
         ) < os.path.getmtime(os.path.join(_NATIVE_DIR, "br_mesh.cpp")):
+            # the native/Makefile rule, without needing make; built under a
+            # private name and renamed, so that processes building at once
+            # never load a half-written library
+            tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
             subprocess.run(
-                ["make", "-s", "-C", _NATIVE_DIR], check=True,
-                capture_output=True,
+                [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-shared",
+                 "-std=c++17", "-o", tmp,
+                 os.path.join(_NATIVE_DIR, "br_mesh.cpp")],
+                check=True, capture_output=True,
             )
+            os.replace(tmp, _LIB_PATH)
         lib = ctypes.CDLL(_LIB_PATH)
         lib.br_cluster.restype = ctypes.c_int
         lib.br_cluster.argtypes = [

@@ -1,11 +1,11 @@
 """AMR hierarchy generation from the regrid condition.
 
-TPU-native replacement for the reference's set_grids pipeline
+Dense-patch replacement for the reference's set_grids pipeline
 (SetGrids.cpp:31-207): initialise temp data per level, evaluate the regrid
 condition, tag cells with |condition| >= refine_threshold * max|condition|,
 grow tags by 2, and build the next finer level from them — iterating until
 max_level. Where Chombo runs Berger-Rigoutsos + LoadBalance to carve tag
-sets into many small boxes for MPI ranks, the TPU design emits a few LARGE
+sets into many small boxes for MPI ranks, this design emits a few LARGE
 dense patches: the bounding box of every well-separated tag cluster
 (`level_decomposition = patches`), or of all tags at once (`bbox`);
 device-mesh sharding of those dense arrays replaces box-granular rank
@@ -206,7 +206,7 @@ def generate_hierarchy(cfg: SolverConfig) -> HierarchyGeom:
 
     level_decomposition = "bbox" (default): one dense bounding box per
     depth — the chain hierarchy. "patches": each well-separated tag
-    cluster becomes its own dense patch entry (a forest; the TPU-native
+    cluster becomes its own dense patch entry (a forest; the dense-array
     analogue of Chombo's disjoint BRMeshRefine box layouts,
     SetGrids.cpp:108-126)."""
     patches_mode = cfg.level_decomposition == "patches"

@@ -36,7 +36,7 @@ from mg_ic_code_tpu.physics.variables import (
     NUM_GRCHOMBO_VARS,
 )
 
-try:  # h5py is present in the image; keep a clean error if not
+try:  # h5py is optional (main.run checks it before a solve)
     import h5py
 
     HAVE_H5PY = True

@@ -82,8 +82,8 @@ def cf_homog_weights(rho: float) -> tuple[float, float]:
 
 def ghost_plane(kind: str, u0, u1, rho: float):
     """THE homogeneous one-ring ghost rule from the two interior planes —
-    the single shared definition every smoother path (XLA, all Pallas
-    kernel variants, the sharded halo assembly) imports; a formula fix
+    the single shared definition every smoother path (XLA, the GPU
+    kernel, the sharded halo assembly) imports; a formula fix
     must land here and nowhere else. Dirichlet/Neumann per
     SetBCs.cpp:49-131; CF = generalized-rho homogeneous quadratic."""
     if kind == PHYS_DIRICHLET:

@@ -5,11 +5,11 @@ one macro source: GSRBHELMHOLTZVC{1,2,3}D
 (VariableCoeffPoissonOperatorF.ChF:31-139), VCCOMPUTEOP{1,2,3}D (:160-237),
 VCCOMPUTERES{1,2,3}D (:260-339) and RESTRICTRESVC{1,2,3}D (:356-437), with
 the 3D flavour the only one the BBH application links. This module is the
-TPU-native counterpart of that genericity: every kernel below is written
+JAX counterpart of that genericity: every kernel below is written
 over `u.ndim` axes, so the same code IS the 1D, 2D and 3D variant —
 `denom = 2^D` in the restriction, `diag = alpha*a + 2*D*beta/dx^2` in the
 relaxation, a (2*D+1)-point star in the Laplacian. The production 3D solver
-keeps its hand-tuned stack (ops/stencils.py + Pallas); this module exists
+keeps its own stack (ops/stencils.py); this module exists
 for the lower-dimensional operator contract and is cross-checked against
 that stack at D=3 (tests/test_lowdim.py).
 

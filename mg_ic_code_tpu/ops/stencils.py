@@ -1,6 +1,6 @@
 """Core stencil kernels as fused XLA element-wise graphs (pure JAX).
 
-TPU-native re-design of the reference's ChF Fortran kernels
+JAX re-design of the reference's ChF Fortran kernels
 (VariableCoeffPoissonOperatorF.ChF): GSRBHELMHOLTZVC3D, VCCOMPUTEOP3D,
 VCCOMPUTERES3D, RESTRICTRESVC3D, plus AMRPoissonOp's piecewise-constant
 prolongIncrement and CoarseAverage's arithmetic/harmonic coefficient
@@ -10,8 +10,8 @@ Convention: `u_gh` denotes an array carrying ONE ghost ring (shape n+2 per
 axis) whose ghosts have already been filled (physical BC / coarse-fine /
 periodic wrap); all other fields are ghost-free interior arrays of shape n.
 All functions are shape-polymorphic and dtype-generic, and are designed to
-fuse into a handful of HBM-bandwidth-bound XLA loops. A Pallas fast path for
-the smoother lives in ops/pallas_kernels.py.
+fuse into a handful of HBM-bandwidth-bound XLA loops. A fused GPU kernel
+for the smoother lives in ops/gsrb_gpu.py.
 """
 
 from __future__ import annotations
@@ -94,12 +94,8 @@ def restrict_full(f: jax.Array) -> jax.Array:
     (the `/denom` accumulation of RESTRICTRESVC3D,
     VariableCoeffPoissonOperatorF.ChF:401-432).
 
-    Implemented as a 2x2x2 stride-2 reduce_window — the TPU-native pooling
-    primitive. The two obvious alternatives are catastrophic on TPU: a
-    (n/2,2,...,2) reshape materialises with (8,128)-tile padding of the
-    size-2 minor dims (64x HBM blowup, OOMs at 512^3) and eight strided
-    slices lower to lane-gathers (measured 242 ms at 256^3 vs 5 ms for
-    reduce_window on v5e)."""
+    Implemented as a 2x2x2 stride-2 reduce_window, XLA's pooling
+    primitive."""
     s = jax.lax.reduce_window(
         f, jnp.zeros((), f.dtype), jax.lax.add, (2, 2, 2), (2, 2, 2),
         "VALID",

@@ -2,14 +2,13 @@
 
 Equivalent of the reference's MPI_Init/MPI_Finalize process bootstrap
 (Main_PoissonSolver.cpp:261-263, 289-291): `initialize()` wraps
-jax.distributed.initialize so an N-host TPU slice presents all its chips in
-jax.devices(); `host_mesh()` then builds the device mesh with the host
-dimension outermost so slab halos between neighbouring x-shards ride ICI
-within a host/slice and only the outermost cuts cross DCN (the layout rule
-from the scaling playbook; SURVEY §2c).
+jax.distributed.initialize so that N processes (one per host) present all
+their GPUs in jax.devices(); `host_mesh()` then builds the device mesh with
+the host dimension outermost, so that neighbouring x-shards sit on the same
+host wherever they can.
 
 On a single process everything degrades to no-ops, so the same driver code
-runs 1-chip and N-host unchanged.
+runs on one card and on N hosts unchanged.
 """
 
 from __future__ import annotations
@@ -20,15 +19,11 @@ from mg_ic_code_tpu.parallel import mesh as pmesh
 
 
 def initialize(
-    coordinator_address: str | None = None,
-    num_processes: int | None = None,
-    process_id: int | None = None,
+    coordinator_address: str, num_processes: int, process_id: int
 ) -> None:
-    """Bring up the multi-host runtime (idempotent; no-op single-host).
-
-    With no arguments, uses the TPU environment's auto-detection (the
-    standard jax.distributed behaviour on Cloud TPU pods).
-    """
+    """Bring up the multi-process runtime (idempotent). Every process gets
+    the same `coordinator_address` (host:port of process 0) and
+    `num_processes`, and its own `process_id`: nothing is auto-detected."""
     # NOTE: do not probe jax.process_count() here — it initialises the XLA
     # backend, after which jax.distributed.initialize refuses to run
     try:
@@ -37,16 +32,10 @@ def initialize(
             num_processes=num_processes,
             process_id=process_id,
         )
-    except (ValueError, RuntimeError) as e:
+    except RuntimeError as e:
         if "only be called once" in str(e):
             return  # already initialised: idempotent no-op
-        if coordinator_address is not None:
-            # an explicitly requested multi-process bootstrap must not fail
-            # silently (the reference would MayDay out of MPI_Init)
-            raise
-        # auto-detection on a single-process / non-pod environment: run
-        # standalone
-        pass
+        raise
 
 
 def choose_mesh_shape(
@@ -57,16 +46,13 @@ def choose_mesh_shape(
     (x, y) pencil when x alone cannot give every device a useful slab
     (>= MIN_LOCAL_NX rows, evenly dividing — the same usefulness rule
     parallel.mesh.level_spec shards by). Among feasible pencils pick the
-    most slab-like (largest sx): deep-halo x exchanges are the
-    production-optimised path (halo.sharded_relax).
+    most slab-like (largest sx): the x-slab path exchanges whole
+    contiguous planes.
 
-    DESIGN RULE (explicit, not a fallback): the chooser NEVER emits a z
-    mesh axis. z is the lane (minor-most) dimension of every Pallas
-    kernel layout, so a z-sharded level loses the whole fused kernel
-    family (multigrid.relax would run the explicit-halo XLA body there —
-    docs/PERF.md "z-axis rule"). An (x, y) pencil of equal device count
-    always moves no more halo data than an (x, z) one on these grids, so
-    there is nothing to buy with z; z-sharding remains reachable only by
+    The chooser never emits a z mesh axis: z is the contiguous axis of
+    every level array, so its halo planes are strided gathers, and an
+    (x, y) pencil of equal device count moves no more halo data than an
+    (x, z) one on these grids. z-sharding remains reachable by
     constructing a 3-D mesh manually (parallel.mesh.make_mesh), and the
     halo paths still handle it correctly. Locked by
     tests/test_parallel.py::test_choose_mesh_shape_never_shards_z."""
@@ -88,10 +74,9 @@ def choose_mesh_shape(
 
 def host_mesh(n_cells: tuple[int, int, int] | None = None):
     """Device mesh ordered host-major: consecutive mesh coordinates land on
-    the same host, so the slab/pencil halo exchanges of neighbouring
-    shards ride ICI within a host and only the outermost seams cross DCN
-    (the reference's analogue is jobscript.pbs handing rank placement to
-    the scheduler; here the layout is ours to pin). With `n_cells`, the
+    the same host, so only the outermost seams of the slab/pencil halo
+    exchanges cross hosts (the reference's analogue is jobscript.pbs
+    handing rank placement to the scheduler). With `n_cells`, the
     1-D-vs-pencil topology is chosen by choose_mesh_shape."""
     devs = sorted(
         jax.devices(), key=lambda d: (d.process_index, d.id)
@@ -132,8 +117,8 @@ def stream_global_slabs(x, axis: int = 0, max_bytes: int = 1 << 25):
     """Yield (start, host-numpy block) tiles of a (possibly
     multi-host-sharded) array along `axis`, gathering at most ~max_bytes
     per tile — the streamed replacement for a full-level gather_global in
-    the HDF5 writers (VERDICT r4 #7: at 512^3+ multi-host, materialising
-    whole levels on host 0 is the memory and DCN bottleneck; the
+    the HDF5 writers (at 512^3+ multi-host, materialising whole levels
+    on host 0 is the memory and network bottleneck; the
     reference writes through parallel HDF5, WriteOutput.H:107-113).
 
     COLLECTIVE when the array is not fully addressable: every process

@@ -1,6 +1,6 @@
 """Device mesh construction and level-array sharding policy.
 
-The TPU-native replacement for the reference's MPI domain decomposition
+The replacement for the reference's MPI domain decomposition
 (LoadBalance box->rank assignment, SetGrids.cpp:57,126): each dense AMR
 level array is sharded over a 1-D device mesh along x (the slowest axis),
 turning the reference's box-granular rank placement into slab partitioning
@@ -8,7 +8,7 @@ with XLA-inserted halo exchange. Levels too small to shard profitably are
 replicated — the analogue of Chombo's implicit gather of coarse MG levels
 onto few ranks.
 
-For multi-host slices, call `jax.distributed.initialize()` before building
+For several hosts, call `distributed.initialize(...)` before building
 the mesh (the MPI_Init replacement, Main_PoissonSolver.cpp:261-263).
 """
 
@@ -36,7 +36,7 @@ def make_mesh(devices=None, shape: tuple[int, ...] | None = None) -> Mesh:
     """Device mesh: 1-D over x-slabs by default, 2-D (x, y) pencils or 3-D
     (x, y, z) blocks when `shape` has two or three entries (the
     counterpart of the reference's 3-D domainSplit box decomposition,
-    SetGrids.cpp:54 — a v4-style 3-D pod topology maps each torus axis)."""
+    SetGrids.cpp:54)."""
     if devices is None:
         devices = jax.devices()
     devices = np.asarray(devices)

@@ -16,7 +16,7 @@ factor psi_bh = m1/(2?) ... = m1/r1 + m2/r2 (the reference keeps the bare
 m/r convention, SetBinaryBH.H:85-99; the singular part is never stored in
 the solved field, only added analytically — SetLevelData.cpp:50-54,118-119).
 
-TPU-first: everything is a fused element-wise jnp graph over the dense level
+Everything is a fused element-wise jnp graph over the dense level
 arrays instead of a quadruple-nested point loop.
 """
 

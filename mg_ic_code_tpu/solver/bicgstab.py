@@ -1,6 +1,6 @@
 """Preconditioned BiCGStab over arbitrary pytrees of level arrays.
 
-TPU-native equivalent of Chombo's BiCGStabSolver<Vector<LevelData>> as used
+JAX equivalent of Chombo's BiCGStabSolver<Vector<LevelData>> as used
 by the reference driver (Main_PoissonSolver.cpp:104,174-184): max-norm
 (m_normType = 0) convergence relative to the initial residual, iteration cap
 m_imax, small-residual hang guard. Implemented as a jit-compatible

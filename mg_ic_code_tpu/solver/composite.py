@@ -1,7 +1,7 @@
 """Composite (multi-level AMR) operator, V-cycle preconditioner and linear
 solve.
 
-TPU-native re-design of Chombo's MultilevelLinearOp + AMRMultiGrid as driven
+JAX re-design of Chombo's MultilevelLinearOp + AMRMultiGrid as driven
 by the reference (Main_PoissonSolver.cpp:103-184):
 
   * composite_apply/residual — the AMR hierarchy as ONE linear operator on
@@ -56,8 +56,7 @@ class AMRSolverSpec:
     # mode (params.txt:32). -1 = plain V-cycle preconditioning.
     pre_cond_solver_depth: int = -1
     # run the MG preconditioner in reduced precision ("float32") while the
-    # outer Krylov stays f64 — the TPU-native mixed-precision mode (f64 is
-    # software-emulated on TPU; the preconditioner only needs smoother-grade
+    # outer Krylov stays f64 (the preconditioner only needs smoother-grade
     # accuracy). None = same precision as the operands.
     precond_dtype: str | None = None
     # groups of same-shape sibling entries executed as ONE batched (vmapped)
@@ -77,7 +76,7 @@ def make_amr_spec(
 ) -> AMRSolverSpec:
     """`mesh` (jax.sharding.Mesh, optional) switches the hot smoother and
     residual onto the explicit shard_map + ppermute-halo production path
-    wherever a depth's x extent shards usefully (multigrid._shard_count)."""
+    wherever a depth's extent shards usefully (multigrid._shard_counts)."""
     level_specs = tuple(
         mg.make_level_spec(
             geom, l, cfg.alpha, cfg.beta, cfg.num_mg_smooth,
@@ -89,16 +88,6 @@ def make_amr_spec(
             num_mg=cfg.num_mg,
             mesh=mesh,
             bottom=cfg.bottom_solver,
-            # "auto" resolves to operand precision: bf16 colour passes are
-            # measured at ~f32 VPU rate on v5e (Mosaic extends bf16
-            # elementwise chains; docs/PERF.md round 4), so there is
-            # nothing to win there by default — the explicit "bfloat16"
-            # value exists for chips that pack bf16 2x
-            smoother_compute=(
-                "bfloat16"
-                if getattr(cfg, "smoother_precision", "auto") == "bfloat16"
-                else None
-            ),
         )
         for l in range(geom.num_levels)
     )
@@ -114,20 +103,10 @@ def make_amr_spec(
         max_iter=cfg.max_iterations,
         hang=cfg.hang,
         pre_cond_solver_depth=cfg.pre_cond_solver_depth,
-        # "auto" resolves here, where the backend is known: TPUs emulate
-        # f64 in software, so a double preconditioner costs ~3x per
-        # Picard iteration (measured: 1.02 -> 0.35 s on the canonical
-        # patches flagship) while the OUTER f64 Krylov still reaches the
-        # 1e-10 tolerance — mixed precision is the TPU production mode
-        # (docs/ARCHITECTURE.md section 5)
+        # "auto" is double on every platform: whether an f32
+        # preconditioner pays on a GPU has not been measured
         precond_dtype=(
-            "float32"
-            if cfg.precond_precision == "single"
-            or (
-                cfg.precond_precision == "auto"
-                and jax.default_backend() == "tpu"
-            )
-            else None
+            "float32" if cfg.precond_precision == "single" else None
         ),
         batch_groups=_sibling_batch_groups(
             geom, level_specs, getattr(cfg, "forest_batching", "auto"), mesh
@@ -319,12 +298,10 @@ def amr_vcycle(spec: AMRSolverSpec, coefs, r_list, use_lp: bool = False):
     same GSRB math as the sequential XLA path, so results are identical.
 
     The batched and single-entry branches are intentionally SEPARATE
-    implementations (VERDICT r3 weak #7 asked to fold single into a batch
-    of one): the single-entry path dispatches the per-patch Pallas kernel
-    families through mg.relax, while the batched body is the vmapped bare-
-    array XLA sweep — a batch of one would silently trade the kernels for
-    the configuration measured 29% slower on one device (forest_batching =
-    force on the flagship: 0.445 vs 0.346 s/iter, docs/PERF.md round 3).
+    implementations: the single-entry path goes through mg.relax (and so
+    through ops/dispatch, which may pick the GPU smoother kernel), while
+    the batched body is the vmapped bare-array XLA sweep — a batch of one
+    would silently trade the kernel for the XLA body.
     Equality of the two bodies is CI-locked (tests/test_forest.py)."""
     geom = spec.geom
     nl = spec.num_levels
@@ -479,16 +456,14 @@ def _composite_residual_coefs(spec, coefs, u_list, rhs_list, use_lp):
     set, for the inner precond iterations.
 
     Routed through the LEVEL residual (mg.residual_homog) rather than
-    rhs - composite_apply: on the f32 mixed-precision path the level
-    residual dispatches the fused resident Pallas kernels where the shape
-    supports them, while the plain XLA fallback (st.residual) is literally
-    rhs - apply_op so the f64 path is unchanged bitwise. The CF
+    rhs - composite_apply: the level residual takes the explicit-halo
+    path on sharded levels, and elsewhere (st.residual) is literally
+    rhs - apply_op, so the unsharded result is unchanged bitwise. The CF
     coarse-ghost face term — part of the composite operator
     (composite_apply adds it with scale -beta/dx^2) — is removed
     afterwards with the negated scale: res = (r - L_homog(u)) - T. The
     reassociation shifts CF-face cells at roundoff only, which the outer
-    f64 Krylov absorbs (same argument as the kernel-width change,
-    docs/PERF.md)."""
+    f64 Krylov absorbs."""
     from mg_ic_code_tpu.ops import cf_interp as _cfi
 
     geom = spec.geom

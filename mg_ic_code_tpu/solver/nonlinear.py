@@ -1,6 +1,6 @@
 """Outer nonlinear (Picard) loop: the poissonSolve driver.
 
-TPU-native re-design of the reference driver (Main_PoissonSolver.cpp:45-256):
+JAX re-design of the reference driver (Main_PoissonSolver.cpp:45-256):
 per iteration, optionally set the constant-K integrability condition
 (periodic BCs), re-linearise the Hamiltonian constraint around the current
 psi (aCoef/rhs from SetLevelData formulas), solve the linear system with
@@ -9,7 +9,7 @@ norm of dpsi for convergence/divergence.
 
 The whole per-iteration computation (K integral, coefficients, linear solve,
 update, norm) is ONE jit-compiled function: shapes repeat across iterations,
-so it compiles once and re-runs cheaply — the TPU analogue of the
+so it compiles once and re-runs cheaply — the analogue of the
 reference's re-defined operator factories per iteration.
 """
 
@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import time
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +51,9 @@ class NLResult:
     converged: bool
     geom: HierarchyGeom = None
     fields: list = None
+    # wall seconds of each Picard iteration, device work included (the
+    # first one carries the compile)
+    iter_seconds: list = None
 
 
 def ghosted_psi(geom: HierarchyGeom, psi_list, level: int):
@@ -216,6 +220,7 @@ def poisson_solve(
     history: list[float] = []
     lin_iters: list[int] = []
     lin_resid: list[float] = []
+    iter_seconds: list[float] = []
     constant_K = 0.0
     spec = comp.make_amr_spec(geom, cfg, mesh)
 
@@ -234,11 +239,13 @@ def poisson_solve(
                                           fields=fields,
                                           constant_K=constant_K))
 
+        t_iter = time.perf_counter()
         with profiling.scope("nl_iteration", block=True):
             psi, dpsi, dpsi_norm_dev, k_dev, stats = nl_iteration(
                 spec, cfg, fields, psi, dpsi
             )
         dpsi_norm = float(dpsi_norm_dev)
+        iter_seconds.append(time.perf_counter() - t_iter)
         constant_K = float(k_dev)
         history.append(dpsi_norm)
         lin_iters.append(int(stats["iters"]))
@@ -249,7 +256,8 @@ def poisson_solve(
             pout(
                 f"The norm of dpsi after step {nl_iter + 1} is {dpsi_norm}"
                 f"  (linear: {int(stats['iters'])} iters, "
-                f"residual {float(stats['final_rnorm']):.3e})"
+                f"residual {float(stats['final_rnorm']):.3e}, "
+                f"{iter_seconds[-1]:.6f} s)"
             )
         if (
             dpsi_norm < cfg.tolerance
@@ -277,4 +285,5 @@ def poisson_solve(
         converged=dpsi_norm < cfg.tolerance,
         geom=geom,
         fields=fields,
+        iter_seconds=iter_seconds,
     )

@@ -1,11 +1,11 @@
 """Composite (multi-level) reductions excluding fine-covered regions.
 
-TPU-native equivalents of Chombo's computeNorm / computeSum / the
+JAX equivalents of Chombo's computeNorm / computeSum / the
 volume-weighted dotProduct of MultilevelLinearOp (used at
 Main_PoissonSolver.cpp:144-148, 208-209 and inside the Krylov solver):
 cells of a coarse level covered by the next finer level are excluded, and
 integral-type reductions are weighted by each level's cell volume dx^3.
-On a sharded mesh these lower to XLA all-reduces over ICI (the MPI_Allreduce
+On a sharded mesh these lower to XLA all-reduces (the MPI_Allreduce
 replacement).
 """
 

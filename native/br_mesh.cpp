@@ -1,6 +1,6 @@
 // Berger-Rigoutsos tag clustering + Morton-order load balancing.
 //
-// Native (C++) grid-builder for the TPU framework: the equivalent of the
+// Native (C++) grid-builder of the solver: the equivalent of the
 // Chombo machinery the reference drives in SetGrids.cpp:54-132 —
 // BRMeshRefine::regrid (tag clustering into boxes), domainSplit (base-level
 // decomposition) and LoadBalance (box -> rank/device assignment). The

@@ -1,4 +1,4 @@
-"""Run the reference's canonical params.txt end-to-end and record the result.
+"""Run the canonical configs/params.txt end-to-end and record the result.
 
 Usage:
     python scripts/run_canonical.py out.json [key=value overrides ...]
@@ -7,7 +7,7 @@ Runs the full nonlinear solve (the reference driver's poissonSolve,
 Main_PoissonSolver.cpp:45-256) on the current backend and writes a JSON
 record with the Picard dpsi-norm history, linear iteration counts, timing
 split (compile wall vs steady per-iteration), and convergence status —
-the round-record format of docs/canonical_*_result.json.
+the record format of docs/canonical_7level_result.json.
 """
 
 from __future__ import annotations
@@ -26,7 +26,10 @@ from mg_ic_code_tpu.utils import compile_cache  # noqa: E402
 
 compile_cache.configure()
 
-REFERENCE_PARAMS = "/root/reference/params.txt"
+REFERENCE_PARAMS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "configs", "params.txt",
+)
 
 
 def main() -> int:

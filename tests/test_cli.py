@@ -192,3 +192,26 @@ def test_cli_restart_warm_start(tiny_params, tmp_path, capsys):
     # tolerance is reached in fewer Picard iterations
     assert warm[0] < cold[1]
     assert len(warm) < len(cold)
+
+
+def test_cli_write_output_off(tiny_params, tmp_path):
+    """write_output = 0 runs the solve and writes no HDF5 file."""
+    rc = cli.run(["main", tiny_params, "write_output = 0"])
+    assert rc == 0
+    assert not list(tmp_path.glob("*.hdf5"))
+
+
+def test_cli_without_h5py_fails_before_the_solve(tiny_params, monkeypatch,
+                                                 capsys):
+    """Without h5py the driver stops before any solve unless output is
+    off (it must not solve for hours and then fail to write)."""
+    import mg_ic_code_tpu.solver.nonlinear as nl
+
+    monkeypatch.setattr(chombo_hdf5, "HAVE_H5PY", False)
+
+    def no_solve(*a, **k):
+        raise AssertionError("solve started without h5py")
+
+    monkeypatch.setattr(nl, "poisson_solve", no_solve)
+    assert cli.run(["main", tiny_params]) == 2
+    assert "h5py" in capsys.readouterr().err

@@ -2,7 +2,7 @@
 
 The hierarchy is a forest of dense patches (HierarchyGeom.parent): two
 well-separated refined regions become sibling entries at the same depth —
-the TPU-native answer to Chombo's disjoint Berger-Rigoutsos clusters
+the dense-array answer to Chombo's disjoint Berger-Rigoutsos clusters
 (SetGrids.cpp:108-126) without union-of-boxes bookkeeping or same-level
 exchange (siblings are separated by construction).
 """
@@ -165,7 +165,7 @@ def test_forest_vcycle_contracts():
         u = [a_ + b_ for a_, b_ in zip(u, e)]
     r3 = float(red.composite_max_norm(
         comp.composite_residual_jit(spec, coefs, u, rhs, True), geom))
-    # ~0.13-0.16/cycle matches the chain hierarchy (docs/PERF.md)
+    # ~0.13-0.16/cycle matches the chain hierarchy
     assert r3 < 5e-3 * r0, (r0, r3)
 
 
@@ -270,17 +270,6 @@ def test_merge_until_separated_invariant_fuzz():
             for j in range(i + 1, len(out)):
                 assert out[i][0].grow(1).intersect(out[j][0]) is None, (
                     trial, out[i][0], out[j][0])
-
-
-def test_tiled_kernel_rejects_odd_sweeps():
-    """Odd nsweeps give a sublane slab extent by+4*n that is not
-    8-aligned (Mosaic DMA constraint); the predicate must gate them."""
-    from mg_ic_code_tpu.ops import fused_sweeps as fs
-
-    assert fs.tiled_supported((512, 512, 512), 32, 32, 4)
-    assert fs.tiled_supported((512, 512, 512), 32, 32, 2)
-    assert not fs.tiled_supported((512, 512, 512), 32, 32, 3)
-    assert not fs.tiled_supported((512, 512, 512), 32, 32, 1)
 
 
 def test_forest_average_down():

@@ -135,7 +135,7 @@ def test_composite_reductions_exclude_covered():
 
 def test_mixed_precision_preconditioner():
     """f32 MG preconditioner + f64 outer BiCGStab still reaches the 1e-10
-    relative tolerance (the TPU-native mixed-precision mode)."""
+    relative tolerance (the mixed-precision mode)."""
     n = 16
     geom = single_level_geom(n, 1.0, BCSpec())
     cfg = poisson_cfg(alpha=1.0, precond_precision="single")
@@ -295,19 +295,20 @@ def test_singular_bottom_never_densely_inverted():
     assert coefs2.get("binv") is not None
 
 
-def test_precond_precision_auto_resolves_by_backend(monkeypatch):
-    """precond_precision="auto" (the default) must resolve to the mixed
-    f32 preconditioner on TPU and the f64 one elsewhere — the round-3
-    flagship regression: records run WITHOUT the explicit single override
-    paid ~2.5x per Picard iteration in software-emulated f64."""
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+def test_precond_precision_auto_resolves_by_backend(monkeypatch, platform):
+    """precond_precision="auto" (the default) resolves to the f64
+    preconditioner on every platform; only an explicit "single" picks the
+    mixed f32 one."""
     import jax
 
     geom = single_level_geom(8, 1.0, BCSpec())
     cfg = poisson_cfg(alpha=1.0)  # default: auto
     assert cfg.precond_precision == "auto"
-    assert comp.make_amr_spec(geom, cfg).precond_dtype is None  # cpu here
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert comp.make_amr_spec(geom, cfg).precond_dtype == "float32"
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    assert comp.make_amr_spec(geom, cfg).precond_dtype is None
+    cfg_s = poisson_cfg(alpha=1.0, precond_precision="single")
+    assert comp.make_amr_spec(geom, cfg_s).precond_dtype == "float32"
     # explicit settings are never overridden
     cfg_d = poisson_cfg(alpha=1.0, precond_precision="double")
     assert comp.make_amr_spec(geom, cfg_d).precond_dtype is None
@@ -418,7 +419,7 @@ def test_composite_apply_cf_decomposition_matches_fill_ghosts():
 
 def test_precond_inner_residual_matches_apply_form():
     """The precond's inner composite residual is routed through the LEVEL
-    residual (mg.residual_homog, Pallas-dispatching on the f32 path) plus
+    residual (mg.residual_homog) plus
     the negated CF coarse-ghost term, instead of rhs - composite_apply.
     Both forms must agree to FLOP-reorder tolerance on bbox / forest /
     periodic-nested geometries, with and without variable bCoef, in f64

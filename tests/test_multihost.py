@@ -80,7 +80,7 @@ def test_two_process_bootstrap_and_io(tmp_path):
 def test_two_process_full_solve_matches_single(tmp_path):
     """A REAL multi-process solve (VERDICT r4 missing #1): the canonical
     3-level BBH config (params.txt physics, 32^3 base for CI runtime)
-    runs end-to-end through the run_tpu_pod.sh code path —
+    runs end-to-end through the multi-host code path —
     distributed.initialize -> main.run -> host-major mesh -> sharded
     poisson_solve with cross-process collectives -> coordinator-only
     HDF5 during the solve — under 2 processes x 2 virtual CPU devices,
@@ -99,7 +99,8 @@ def test_two_process_full_solve_matches_single(tmp_path):
     # stable (3/3 trials)
     env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=2 "
                         "--xla_cpu_parallel_codegen_split_count=1")
-    env["MG_JAX_CACHE"] = "0"
+    # a fresh compile cache of this test's own
+    env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / "jax_cache")
 
     def hist_of(outs):
         for out in outs:

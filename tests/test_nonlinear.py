@@ -98,7 +98,7 @@ def test_nonlinear_divergence_raises():
 
 
 def test_nonlinear_mixed_precision_matches_double():
-    """The production TPU configuration (f32 MG preconditioner, f64 outer
+    """The mixed-precision configuration (f32 MG preconditioner, f64 outer
     Krylov) must reproduce the all-f64 Picard trajectory."""
     cfg64 = small_bbh_cfg(max_level=1)
     cfg32 = small_bbh_cfg(max_level=1, precond_precision="single")

@@ -1,6 +1,7 @@
 """Regression on the reference's canonical configuration.
 
-Runs the reference's own params.txt (verbatim key set: 64^3 base, L=100,
+Runs the reference's own params.txt (configs/params.txt, its verbatim key
+set: 64^3 base, L=100,
 BBH punctures m=0.5 at x=+-10 with spins Jz=0.1 and momenta Py=+-0.05,
 scalar field A=0.1, harmonic coefficient averaging, tol 1e-10) truncated to
 3 AMR levels for CPU runtime. The dpsi-norm history is the reference's own
@@ -26,7 +27,10 @@ from mg_ic_code_tpu.config import SolverConfig, load_params
 from mg_ic_code_tpu.grid.tagging import generate_hierarchy
 from mg_ic_code_tpu.solver.nonlinear import poisson_solve
 
-REFERENCE_PARAMS = "/root/reference/params.txt"
+REFERENCE_PARAMS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "configs", "params.txt",
+)
 
 _INNER_ENV = "MG_FLAGSHIP_INNER"
 
@@ -58,9 +62,6 @@ def _isolated(nodeid: str) -> bool:
     return True
 
 
-@pytest.mark.skipif(
-    not os.path.exists(REFERENCE_PARAMS), reason="reference tree not mounted"
-)
 def test_canonical_bbh_config_three_levels():
     cfg = load_params(REFERENCE_PARAMS, overrides=["max_level = 2"])
     # sanity: the file parsed to the reference's documented values
@@ -91,19 +92,14 @@ def test_canonical_bbh_config_three_levels():
         assert arr.min() > 0.5 and arr.max() < 2.0
 
 
-@pytest.mark.skipif(
-    not os.path.exists(REFERENCE_PARAMS), reason="reference tree not mounted"
-)
-@pytest.mark.skipif(
-    os.environ.get("MG_FAST_TESTS") == "1",
-    reason="MG_FAST_TESTS=1 (several-minute flagship run skipped)",
-)
+@pytest.mark.slow
 def test_canonical_bbh_config_seven_levels_flagship():
     """The FLAGSHIP regression (VERDICT r1 weak #5): the reference's
     canonical params.txt verbatim — 64^3 base, 7 AMR levels, 21M cells.
     Locks the recorded Picard history and linear-iteration counts of
     docs/canonical_7level_result.json so solver-chain drift fails CI.
-    Runs in ~3-4 min on 4 CPU cores; skip locally with MG_FAST_TESTS=1."""
+    Runs in ~3-4 min on 4 CPU cores (marked slow; chip_smoke.py runs the
+    same locks on the GPU)."""
     if _isolated("test_canonical_bbh_config_seven_levels_flagship"):
         return
     cfg = load_params(REFERENCE_PARAMS)
@@ -118,8 +114,7 @@ def test_canonical_bbh_config_seven_levels_flagship():
     res = poisson_solve(cfg, geom=geom, verbose=False)
     h = res.dpsi_norm_history
     # step-1 norm locks the linearisation + composite solver chain end to
-    # end (docs/canonical_7level_result.json, CPU f64; the TPU mixed-
-    # precision run agrees to ~6 digits)
+    # end (docs/canonical_7level_result.json, CPU f64)
     assert h[0] == pytest.approx(0.27342222391586096, rel=1e-6)
     # strong contraction, then the covered-cell feedback plateau
     assert h[1] == pytest.approx(0.00010170868859107062, rel=1e-4)
@@ -152,21 +147,13 @@ def test_periodic_constant_k_path():
     assert res.dpsi_norm_history[-1] < 0.1
 
 
-@pytest.mark.skipif(
-    not os.path.exists(REFERENCE_PARAMS), reason="reference tree not mounted"
-)
-@pytest.mark.skipif(
-    os.environ.get("MG_FAST_TESTS") == "1",
-    reason="MG_FAST_TESTS=1 (several-minute flagship run skipped)",
-)
+@pytest.mark.slow
 def test_canonical_bbh_config_seven_levels_patches_flagship():
     """The PATCHES-mode flagship regression (VERDICT r2 weak #5): the
     canonical params.txt with level_decomposition=patches — the
     production-recommended forest hierarchy (12.7M refined cells, 2.24x
-    leaner than the bbox chain). Locks the Picard history of
-    docs/canonical_7level_patches_tpu_result.json (TPU mixed-precision
-    agrees with this CPU f64 run to ~1e-5 rel at step 1) so forest-path
-    drift fails CI."""
+    leaner than the bbox chain). Locks its CPU f64 Picard history so
+    forest-path drift fails CI."""
     if _isolated("test_canonical_bbh_config_seven_levels_patches_flagship"):
         return
     cfg = load_params(
@@ -177,8 +164,7 @@ def test_canonical_bbh_config_seven_levels_patches_flagship():
     assert geom.max_depth == 6
     res = poisson_solve(cfg, geom=geom, verbose=False)
     h = res.dpsi_norm_history
-    # step-1 norm locks the forest linearisation + solver chain (TPU
-    # record 0.2701169260530223)
+    # step-1 norm locks the forest linearisation + solver chain
     assert h[0] == pytest.approx(0.2701169260530223, rel=1e-5)
     assert h[1] == pytest.approx(0.00010130813480049763, rel=1e-3)
     # the reference-parity covered-cell plateau (without average_down)
@@ -189,15 +175,11 @@ def test_canonical_bbh_config_seven_levels_patches_flagship():
         assert arr.min() > 0.5 and arr.max() < 2.0
 
 
-@pytest.mark.skipif(
-    not os.path.exists(REFERENCE_PARAMS), reason="reference tree not mounted"
-)
 def test_canonical_three_levels_average_down_converges():
     """average_down=1 on the canonical config (3 levels for CPU runtime):
     the Picard loop must CONVERGE to the reference's 1e-10 tolerance
-    instead of plateauing at the covered-cell floor — the mechanism behind
-    the 7-level flagship records in
-    docs/canonical_7level_*avgdown_result.json."""
+    instead of plateauing at the covered-cell floor — the mechanism the
+    7-level average_down flagship test locks."""
     cfg = load_params(
         REFERENCE_PARAMS,
         overrides=["max_level = 2", "average_down = 1",
@@ -212,13 +194,7 @@ def test_canonical_three_levels_average_down_converges():
     assert all(b < 0.5 * a for a, b in zip(h, h[1:])), h
 
 
-@pytest.mark.skipif(
-    not os.path.exists(REFERENCE_PARAMS), reason="reference tree not mounted"
-)
-@pytest.mark.skipif(
-    os.environ.get("MG_FAST_TESTS") == "1",
-    reason="MG_FAST_TESTS=1 (several-minute flagship run skipped)",
-)
+@pytest.mark.slow
 @pytest.mark.parametrize("mode,h0,h1", [
     ("bbox", 0.27342222391586096, 0.03232302686016387),
     ("patches", 0.27011680093800583, 0.03473660713230694),
@@ -230,10 +206,7 @@ def test_canonical_seven_levels_average_down_flagship(mode, h0, h1):
     step norms, monotone contraction with NO plateau, convergence past the
     reference's 1e-10 oracle (Main_PoissonSolver.cpp:208-225, params.txt
     tolerance) within 8 Picard iterations, and 2-3 Krylov iterations per
-    linear solve. CPU f64 values recorded 2026-08-20; the round-3 TPU
-    mixed-precision records (docs/canonical_7level_*avgdown_result.json)
-    agree with these histories to ~5 digits down to their f32-precond
-    floor."""
+    linear solve. CPU f64 values recorded 2026-08-20."""
     if _isolated(
         f"test_canonical_seven_levels_average_down_flagship[{mode}]"
     ):
